@@ -1,4 +1,4 @@
-// tfhe_core: native C++ oracle for the TPU-native TFHE framework.
+// tfhe_core: native C++ oracle for the tfhe_jax TFHE framework.
 //
 // A second, independent bit-exact implementation of the scheme's integer
 // primitives (the first oracle is the NumPy golden model; the JAX path is the

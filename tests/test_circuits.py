@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import pytest
 
-import tfhe_tpu as tfhe
-from tfhe_tpu.models import boolean as mbool
-from tfhe_tpu.models import circuits as mcirc
-from tfhe_tpu.params import get_params
+import tfhe_jax as tfhe
+from tfhe_jax.models import boolean as mbool
+from tfhe_jax.models import circuits as mcirc
+from tfhe_jax.params import get_params
 
 TEST = get_params("test_insecure")
 #: the 3-input-gate variants run at nano shapes — the maj/xor3 composition is

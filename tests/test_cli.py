@@ -4,7 +4,7 @@ decrypt -> noise) at the insecure-fast parameter sets, on CPU."""
 import numpy as np
 import pytest
 
-from tfhe_tpu.cli import main
+from tfhe_jax.cli import main
 
 
 def run(capsys, *argv):

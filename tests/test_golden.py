@@ -8,8 +8,8 @@ its own semantic tests before it can serve as the oracle for the JAX path.
 import numpy as np
 import pytest
 
-import tfhe_tpu.golden.model as g
-from tfhe_tpu.params import DecomposerParams, get_params
+import tfhe_jax.golden.model as g
+from tfhe_jax.params import DecomposerParams, get_params
 
 TEST = get_params("test_insecure")
 

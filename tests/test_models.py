@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import tfhe_tpu as tfhe
-import tfhe_tpu.golden.model as g
-from tfhe_tpu.models import bootstrap as mboot
-from tfhe_tpu.models import ggsw as mggsw
-from tfhe_tpu.models import glwe as mglwe
-from tfhe_tpu.models import keyswitch as mks
-from tfhe_tpu.models import lwe as mlwe
-from tfhe_tpu.models import test_vector as mtv
-from tfhe_tpu.models.keys import make_server_key
-from tfhe_tpu.params import get_params
+import tfhe_jax as tfhe
+import tfhe_jax.golden.model as g
+from tfhe_jax.models import bootstrap as mboot
+from tfhe_jax.models import ggsw as mggsw
+from tfhe_jax.models import glwe as mglwe
+from tfhe_jax.models import keyswitch as mks
+from tfhe_jax.models import lwe as mlwe
+from tfhe_jax.models import test_vector as mtv
+from tfhe_jax.models.keys import make_server_key
+from tfhe_jax.params import get_params
 
 TEST = get_params("test_insecure")
 
@@ -182,7 +182,7 @@ class TestBitExactBootstrap:
     def test_full_pbs_bit_exact_ntt(self, shared):
         """Block-NTT backend (ops/ntt.py, impl='ntt') end-to-end: the whole
         PBS with the NTT-domain-resident key is bit-identical to golden."""
-        from tfhe_tpu.models.keys import with_ntt_key
+        from tfhe_jax.models.keys import with_ntt_key
 
         d, bk_g, ksk_g, server, _ = shared
         rng = np.random.default_rng(21)
@@ -204,8 +204,8 @@ class TestBitExactBootstrap:
     def test_full_pbs_bit_exact_ntt_streaming(self, shared):
         """Streaming NTT backend (impl='ntts'): per-step key transform inside
         the scan, no resident NTT key — bit-identical to golden.  This is the
-        only runnable NTT mode at N >= 2048, where the resident key would
-        exceed HBM (models/keys.py:with_ntt_key guard)."""
+        NTT mode for parameter sets whose resident NTT key would not fit the
+        device (models/keys.py:with_ntt_key guard)."""
         d, bk_g, ksk_g, server, _ = shared
         rng = np.random.default_rng(27)
         p = TEST
@@ -222,204 +222,93 @@ class TestBitExactBootstrap:
         ours = np.asarray(mboot.pbs(p, cts, server, tv_enc, impl="ntts"))
         assert np.array_equal(ours, want)
 
-    def test_full_pbs_bit_exact_nttf_interpret(self, shared):
-        """Fused whole-scan block-NTT kernel (ops/pallas/ntt_kernel.py,
-        impl='nttf') in interpret mode: bit-identical to golden (and hence to
-        impl='ntt' — the VERDICT r3 acceptance bar)."""
-        from tfhe_tpu.models.keys import with_ntt_key
-
-        d, bk_g, ksk_g, server, _ = shared
-        rng = np.random.default_rng(33)
-        p = TEST
-        server_ntt = with_ntt_key(server)
-        tv_clear = g.construct_identity_test_vector(p)
-        tv_enc = jnp.asarray(mtv.identity_test_vector(p))
-        a = rnd_u32(rng, (2, p.lwe_dimension))
-        e = gaussian_u32(rng, p.lwe_std_dev, (2,))
-        cts = np.stack([
-            g.encrypt_lwe(d["lwe_sk"], g.lwe_encode(m, p), a[m], e[m])
-            for m in range(2)
-        ])
-        want = np.stack([g.bootstrap(cts[i], bk_g, ksk_g, tv_clear, p)
-                         for i in range(2)])
-        ours = np.asarray(
-            mboot.pbs(p, cts, server_ntt, tv_enc, impl="nttf_interpret")
-        )
-        assert np.array_equal(ours, want)
-        # the cached lhs-only key form (keys.with_ntt_lhs_key, drop_rhs=True:
-        # what bench.py and the large-degree sweep serve from) is
-        # bit-identical through the same kernel, with NO rhs key resident
-        from tfhe_tpu.models.keys import with_ntt_lhs_key
-
-        server_lhs = with_ntt_lhs_key(server, drop_rhs=True)
-        assert server_lhs.bk_ntt is None
-        ours_lhs = np.asarray(
-            mboot.pbs(p, cts, server_lhs, tv_enc, impl="nttf_interpret")
-        )
-        assert np.array_equal(ours_lhs, want)
-
-    def test_fused_wide_equals_narrow_nano(self):
-        """The wide-dot fused kernel (lane-concatenated digit planes, single
-        [R_d*N, CL*N] Toeplitz scratch, aliased acc) is bit-identical to the
-        narrow per-plane kernel — random-tensor harness (wrapping-u32
-        exactness makes random keys as good as real ones)."""
-        from tfhe_tpu.ops.pallas.blind_rotate_kernel import blind_rotate_fused
-
-        p = get_params("nano")
-        n, k1, N = p.lwe_dimension, p.glwe_dimension + 1, p.degree
-        rows = k1 * p.pbs_decomposer.levels
-        key = jax.random.key(7)
-        ka, kb, kc = jax.random.split(key, 3)
-        bk = jax.random.bits(ka, (n, rows, k1, N), jnp.uint32)
-        acc0 = jax.random.bits(kb, (8, k1, N), jnp.uint32)
-        a_hat = jax.random.randint(kc, (n, 8), 0, 2 * N, jnp.int32)
-        ref = blind_rotate_fused(p, acc0, bk, a_hat, interpret=True,
-                                 wide=False, batch_tile=4)
-        for bt in (4, 8):
-            got = blind_rotate_fused(p, acc0, bk, a_hat, interpret=True,
-                                     wide=True, batch_tile=bt)
-            assert bool(jnp.all(ref == got)), bt
-
-    def test_fused_batch_chunking_exact(self, monkeypatch):
-        """Batches above _FUSED_MAX_BATCH split into independent pallas_calls
-        with identical results (models/bootstrap.py:blind_rotate)."""
-        from tfhe_tpu.models import keys as mkeys
-        from tfhe_tpu.ops.torus import switch_modulus
-
-        p = get_params("nano")
-        ck, sk = jax.jit(lambda s: mkeys.keygen(p, s))(jax.random.key(3))
-        tv = jnp.asarray(mtv.identity_test_vector(p))
-        cts = tfhe.encrypt(ck, np.arange(6, dtype=np.uint32) % 4, key=9)
-        approx = switch_modulus(cts, p.log_q, p.log_degree + 1)
-        whole = mboot.blind_rotate(p, approx, sk, tv, impl="fused_interpret")
-        monkeypatch.setattr(mboot, "_FUSED_MAX_BATCH", 4)
-        chunked = mboot.blind_rotate(p, approx, sk, tv, impl="fused_interpret")
-        assert np.array_equal(np.asarray(whole), np.asarray(chunked))
-
-    def test_full_pbs_bit_exact_fusedb_interpret(self, shared):
-        """Balanced-digit whole-scan kernel (impl='fusedb', interpret mode):
-        bit-identical to an XLA scan running the SAME closed-form balanced
-        decomposition (ops/decomposer.py:decompose_balanced_planes), and the
-        full PBS output decrypts/decodes to the same messages as golden
-        (different exact digit convention, identical reconstruction —
-        see DIVERGENCES.md)."""
-        from tfhe_tpu.ops.decomposer import decompose_balanced_planes
-        from tfhe_tpu.ops.poly import ep_combine, ep_contract_matmul
-        from tfhe_tpu.ops.torus import switch_modulus
-
-        d, bk_g, ksk_g, server, _ = shared
-        rng = np.random.default_rng(31)
-        p = TEST
-        k1 = p.glwe_dimension + 1
-        levels = p.pbs_decomposer.levels
-        tv_clear = g.construct_identity_test_vector(p)
-        tv_enc = jnp.asarray(mtv.identity_test_vector(p))
-        a = rnd_u32(rng, (2, p.lwe_dimension))
-        e = gaussian_u32(rng, p.lwe_std_dev, (2,))
-        msgs = [1, 3]
-        cts = np.stack([
-            g.encrypt_lwe(d["lwe_sk"], g.lwe_encode(m, p), a[i], e[i])
-            for i, m in enumerate(msgs)
-        ])
-        approx = switch_modulus(jnp.asarray(cts), p.log_q, p.log_degree + 1)
-        # XLA balanced scan (matmul contraction): the independent oracle
-        acc, a_hat = mboot._init_acc(p, approx, tv_enc)
-        for i in range(p.lwe_dimension):
-            rot = mglwe.mul_monomial(acc, a_hat[i])
-            digs = decompose_balanced_planes(rot - acc, p.pbs_decomposer)
-            digs = jnp.moveaxis(digs, 0, -2)  # [B, k+1, levels, N]
-            digs = digs.reshape(digs.shape[0], k1 * levels, p.degree)
-            raw = ep_contract_matmul(digs, server.bk_u32[i])
-            acc = acc + ep_combine(raw, k1)
-        want_rot = np.asarray(acc)
-        ours_rot = np.asarray(mboot.blind_rotate(
-            p, approx, server, tv_enc, impl="fusedb_interpret"))
-        assert np.array_equal(ours_rot, want_rot)
-        # full PBS decodes identically to the golden (reference-convention)
-        # bootstrap, though the ciphertext bits differ
-        ref = np.stack([g.bootstrap(cts[i], bk_g, ksk_g, tv_clear, p)
-                        for i in range(2)])
-        ours = np.asarray(
-            mboot.pbs(p, cts, server, tv_enc, impl="fusedb_interpret"))
-        for i in range(2):
-            got = g.lwe_decode(g.decrypt_lwe(d["lwe_sk"], ours[i]), p)
-            want = g.lwe_decode(g.decrypt_lwe(d["lwe_sk"], ref[i]), p)
-            assert got == want, (i, got, want)
-
-    def test_full_pbs_bit_exact_pallas_interpret(self, shared):
-        """Pallas backend (interpret mode on CPU) is bit-identical too —
-        covers the level-major digit rows + bk_lm permutation + VMEM-layout
-        kernel against the same golden pipeline."""
-        d, bk_g, ksk_g, server, _ = shared
-        rng = np.random.default_rng(15)
-        p = TEST
-        tv_clear = g.construct_identity_test_vector(p)
-        tv_enc = jnp.asarray(mtv.identity_test_vector(p))
-        a = rnd_u32(rng, (p.lwe_dimension,))
-        e = gaussian_u32(rng, p.lwe_std_dev, ())
-        ct = g.encrypt_lwe(d["lwe_sk"], g.lwe_encode(2, p), a, e)
-        want = g.bootstrap(ct, bk_g, ksk_g, tv_clear, p)
-        ours = np.asarray(
-            mboot.pbs(p, ct[None], server, tv_enc, impl="pallas_interpret")
-        )[0]
-        assert np.array_equal(ours, want)
-
 
 NANO = get_params("nano")
 
 
-class TestKernelBitExactNano:
-    """Whole-scan kernel families, bit-exact at nano shapes (N=64, n=4).
-
-    The full-size (test_insecure, N=512) interpret runs of these kernels cost
-    43-500 s EACH on CPU, which kept the driver from ever seeing the whole
-    suite (VERDICT r4 item 2).  The kernels' digit pipelines and contraction
-    orders are degree-independent, so nano pins the same semantics in
-    seconds against the conv scan (itself golden-pinned bit-exact at
-    test_insecure above).  Full-size interpret representatives that remain
-    at test_insecure: fusedb (the shared ``_kernel`` body + full-PBS golden
-    decode), pallas (per-step kernel), nttf (NTT tier); additionally every
-    family is hardware-bit-exact in the 0-gate-error bench artifacts
-    (ARTIFACTS/*_r4.json, latency_r5.json)."""
+class TestBackendsBitExactNano:
+    """Every plain backend bit-exact against ``conv`` at nano shapes (N=64,
+    n=4) and odd/even batches; ``conv`` itself is golden-pinned at
+    test_insecure above.  BMMP runs another rotation (other noise), so it is
+    pinned to itself: bit-identical through every contraction, and decoding
+    to the same messages as ``conv``."""
 
     @pytest.fixture(scope="class")
     def env(self):
-        from tfhe_tpu.models.keys import with_latency_key
+        from tfhe_jax.models.keys import with_ntt_key
 
         p = NANO
         ck, sk = tfhe.keygen(p, jax.random.key(5), bmmp=True)
-        sk = with_latency_key(sk)
+        sk = with_ntt_key(sk)
         rng = np.random.default_rng(77)
-        approx = jnp.asarray(rng.integers(
-            0, 2 * p.degree, size=(8, p.lwe_dimension + 1), dtype=np.uint32))
-        tv = jnp.asarray(rng.integers(0, 1 << 32, size=(p.degree,),
-                                      dtype=np.uint32))
-        refs = {
-            "conv": np.asarray(
-                mboot.blind_rotate(p, approx, sk, tv, impl="conv")),
-            "fusedb_interpret": np.asarray(mboot.blind_rotate(
-                p, approx, sk, tv, impl="fusedb_interpret")),
-            "bmmp_interpret": np.asarray(mboot.blind_rotate(
-                p, approx[:4], sk, tv, impl="bmmp_interpret")),
-        }
-        return p, sk, approx, tv, refs
+        msgs = rng.integers(0, 1 << p.log_p, size=8).astype(np.uint32)
+        cts = tfhe.encrypt(ck, msgs, key=78)
+        tv = jnp.asarray(mtv.identity_test_vector(p))
+        ref = np.asarray(mboot.pbs(p, cts, sk, tv, impl="conv"))
+        return p, ck, sk, cts, msgs, tv, ref
 
-    @pytest.mark.parametrize("impl,ref,batch", [
-        ("fused_interpret", "conv", 8),    # carry-chain digits in-kernel
-        ("fusedp_interpret", "conv", 8),   # parity double-buffered digits
-        ("fusedc_interpret", "conv", 8),   # column-split + digit scratch
-        ("fusedw_interpret", "conv", 8),   # wide-dot pipelined
-        ("fusedl_interpret", "conv", 8),   # bitcast digit-circulant latency
-        ("fusedl_interpret", "conv", 3),   # latency kernel, odd batch
-        ("fusedwb_interpret", "fusedb_interpret", 8),  # balanced wide
-        ("bmmpl_interpret", "bmmp_interpret", 4),  # BMMP latency kernel
-        ("bmmpl_interpret", "bmmp_interpret", 3),  # odd batch
+    @pytest.mark.parametrize("batch", [1, 3, 8])
+    @pytest.mark.parametrize("impl", ["matmul", "ntt", "ntts"])
+    def test_pbs_matches_conv(self, env, impl, batch):
+        p, ck, sk, cts, msgs, tv, ref = env
+        got = np.asarray(mboot.pbs(p, cts[:batch], sk, tv, impl=impl))
+        assert np.array_equal(got, ref[:batch]), impl
+
+    @pytest.mark.parametrize("batch", [1, 3, 8])
+    def test_bmmp_contractions_agree(self, env, batch):
+        from tfhe_jax.ops.torus import switch_modulus
+
+        p, ck, sk, cts, msgs, tv, ref = env
+        approx = switch_modulus(cts[:batch], p.log_q, p.log_degree + 1)
+        accs = [np.asarray(mboot._blind_rotate_bmmp(p, approx, sk.bk_bmmp, tv, c))
+                for c in ("conv", "matmul", "ntts")]
+        assert all(np.array_equal(a, accs[0]) for a in accs[1:])
+        # the default contraction is one of them, and the PBS decodes right
+        out = mboot.pbs(p, cts[:batch], sk, tv, impl="bmmp")
+        assert np.array_equal(np.asarray(tfhe.decrypt(ck, out)), msgs[:batch])
+        assert np.array_equal(np.asarray(tfhe.decrypt(ck, out)),
+                              np.asarray(tfhe.decrypt(ck, ref[:batch])))
+
+
+class TestImplChoice:
+    """``resolve_impl``: the backend ``auto`` picks from platform and batch."""
+
+    @pytest.mark.parametrize("platform,batch,want", [
+        ("cpu", 1, "conv"),
+        ("cpu", 4096, "conv"),
+        ("gpu", 1, "ntts"),
+        ("gpu", mboot.GPU_NTTS_MAX_BATCH, "ntts"),
+        ("gpu", mboot.GPU_NTTS_MAX_BATCH + 1, "matmul"),
+        ("gpu", 4096, "matmul"),
     ])
-    def test_blind_rotate_matches(self, env, impl, ref, batch):
-        p, sk, approx, tv, refs = env
-        got = np.asarray(
-            mboot.blind_rotate(p, approx[:batch], sk, tv, impl=impl))
-        assert np.array_equal(got, refs[ref][:batch]), impl
+    def test_auto(self, monkeypatch, platform, batch, want):
+        monkeypatch.setattr(mboot.jax, "default_backend", lambda: platform)
+        assert mboot.resolve_impl("auto", batch) == want
+
+    def test_explicit_impl_passes_through(self, monkeypatch):
+        monkeypatch.setattr(mboot.jax, "default_backend", lambda: "gpu")
+        for impl in mboot.VALID_IMPLS[1:]:
+            assert mboot.resolve_impl(impl, 1) == impl
+
+    def test_valid_impls_are_the_plain_backends(self):
+        assert mboot.VALID_IMPLS == ("auto", "conv", "matmul", "ntt", "ntts", "bmmp")
+
+    @pytest.mark.parametrize("impl", ["pallas", "fusedb", "fusedl", "nttf_interpret"])
+    def test_removed_backend_is_refused(self, impl):
+        p = NANO
+        approx = jnp.zeros((2, p.lwe_dimension + 1), jnp.uint32)
+        tv = jnp.zeros((p.degree,), jnp.uint32)
+        with pytest.raises(ValueError, match="unknown impl"):
+            mboot.blind_rotate(p, approx, None, tv, impl=impl)
+
+    def test_missing_keys_are_refused(self):
+        p = NANO
+        _, sk = tfhe.keygen(p, jax.random.key(6))
+        approx = jnp.zeros((2, p.lwe_dimension + 1), jnp.uint32)
+        tv = jnp.zeros((p.degree,), jnp.uint32)
+        for impl, what in (("bmmp", "bmmp=True"), ("ntt", "with_ntt_key")):
+            with pytest.raises(ValueError, match=what):
+                mboot.blind_rotate(p, approx, sk, tv, impl=impl)
 
 
 class TestSampleExtractGeneral:
@@ -454,7 +343,7 @@ class TestClearSimulationOracle:
 
     @pytest.mark.parametrize("impl", ["conv", "matmul"])
     def test_blind_rotate_matches_clear_simulation(self, shared, impl):
-        from tfhe_tpu.ops.torus import switch_modulus as jsm, u32 as ju32
+        from tfhe_jax.ops.torus import switch_modulus as jsm, u32 as ju32
 
         d, bk_g, ksk_g, server, _ = shared
         rng = np.random.default_rng(19)
@@ -551,7 +440,7 @@ class TestNegativePhaseWrap:
         ct[-1] = np.uint32(0) - eps
         tv = jnp.asarray(mtv.gate_test_vector(p, "nand"))
         out = np.asarray(mboot.pbs(p, ct[None], server, tv))[0]
-        from tfhe_tpu.ops.torus import decode as t_decode
+        from tfhe_jax.ops.torus import decode as t_decode
 
         got = int(t_decode(g.decrypt_lwe(d["lwe_sk"], out), p.log_q, p.log_p, p.padding_bits))
         assert got == 1  # NAND(0,0) = 1 even with negative phase
@@ -564,7 +453,7 @@ class TestNegativePhaseWrap:
             ct = np.zeros((p.lwe_dimension + 1,), dtype=np.uint32)
             ct[-1] = eps
             out = np.asarray(mboot.pbs(p, ct[None], server, tv))[0]
-            from tfhe_tpu.ops.torus import decode as t_decode
+            from tfhe_jax.ops.torus import decode as t_decode
 
             got = int(
                 t_decode(g.decrypt_lwe(d["lwe_sk"], out), p.log_q, p.log_p, p.padding_bits)
@@ -615,7 +504,7 @@ class TestBmmp:
         _, sk = bmmp_keys
         p = TEST
         rows = (p.glwe_dimension + 1) * p.pbs_decomposer.levels
-        assert sk.bk_bmmp_lm.shape == (
+        assert sk.bk_bmmp.shape == (
             p.lwe_dimension // 2, 3 * rows, p.glwe_dimension + 1, p.degree
         )
 
@@ -626,18 +515,18 @@ class TestBmmp:
         rhs = np.array([0, 1, 0, 1], dtype=np.uint32)
         c1 = tfhe.encrypt(ck, lhs, key=70)
         c0 = tfhe.encrypt(ck, rhs, key=71)
-        out = tfhe.gates.gate(sk, gate, c0, c1, impl="bmmp_interpret")
+        out = tfhe.gates.gate(sk, gate, c0, c1, impl="bmmp")
         got = np.asarray(tfhe.decrypt(ck, out))
         want = np.array([mtv.GATE_FNS[gate](int(l), int(r)) for l, r in zip(lhs, rhs)])
         assert np.array_equal(got, want), gate
 
     def test_noise_margin(self, bmmp_keys):
-        from tfhe_tpu.utils import noise as unoise
+        from tfhe_jax.utils import noise as unoise
 
         ck, sk = bmmp_keys
         msgs = np.array([0, 1, 2, 3], dtype=np.uint32)
         out = tfhe.bootstrap_identity(sk, tfhe.encrypt(ck, msgs, key=72),
-                                      impl="bmmp_interpret")
+                                      impl="bmmp")
         rep = unoise.measure(ck, out, msgs)
         assert rep.failures == 0
         assert rep.max_abs_over_delta < 0.5

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-import tfhe_tpu.golden.model as g
-from tfhe_tpu import native
-from tfhe_tpu.params import DecomposerParams, get_params
+import tfhe_jax.golden.model as g
+from tfhe_jax import native
+from tfhe_jax.params import DecomposerParams, get_params
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="no C++ toolchain")
 

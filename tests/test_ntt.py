@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tfhe_tpu.golden.model as g
-from tfhe_tpu.ops import ntt as jntt
-from tfhe_tpu.ops import poly as jpoly
-from tfhe_tpu.ops.poly import ep_combine, ep_contract_matmul
-from tfhe_tpu.params import get_params
+import tfhe_jax.golden.model as g
+from tfhe_jax.ops import ntt as jntt
+from tfhe_jax.ops import poly as jpoly
+from tfhe_jax.ops.poly import ep_combine, ep_contract_matmul
+from tfhe_jax.params import get_params
 
 TEST = get_params("test_insecure")
 D128 = get_params("default_128")

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tfhe_tpu.golden.model as g
-from tfhe_tpu.ops import decomposer as jdec
-from tfhe_tpu.ops import poly as jpoly
-from tfhe_tpu.ops import torus as jtorus
-from tfhe_tpu.params import DecomposerParams, get_params
+import tfhe_jax.golden.model as g
+from tfhe_jax.ops import decomposer as jdec
+from tfhe_jax.ops import poly as jpoly
+from tfhe_jax.ops import torus as jtorus
+from tfhe_jax.params import DecomposerParams, get_params
 
 TEST = get_params("test_insecure")
 PBS_DP = TEST.pbs_decomposer
@@ -72,23 +72,6 @@ class TestDecomposer:
         d = jdec.decompose_u32(v, dp)
         ours = np.asarray(jdec.recompose(d, dp))
         assert np.array_equal(ours, g.round_value(v, dp))
-
-    @pytest.mark.parametrize("dp", [PBS_DP, KS_DP, DecomposerParams(4, 8, 32)])
-    def test_balanced_closed_form_exact(self, rng, dp):
-        """decompose_balanced_planes: digits strictly in [-B/2, B/2) AND the
-        recomposition equals round_value mod 2^32 exactly — the same
-        reconstruction as the reference carry chain (which it therefore
-        matches as an exact gadget decomposition, digit-vector aside)."""
-        v = rnd_u32(rng, (100_000,))
-        v = np.concatenate(
-            [v, np.array([0, 0xF8, 0xFF, 0xFFFFFFFF, 0x88888888, 0x7FFFFFFF], np.uint32)]
-        )
-        d = np.asarray(jdec.decompose_balanced_planes(v, dp))  # [levels, M]
-        assert d.min() >= -dp.base // 2 and d.max() < dp.base // 2
-        shifts = (dp.log_base * (dp.levels - 1 - np.arange(dp.levels))).astype(np.uint64)
-        rec = (d.astype(np.int64) * (1 << shifts)[:, None].astype(np.int64)).sum(0)
-        rec = ((rec & 0xFFFFFFFF).astype(np.uint32)) << np.uint32(dp.ignored_bits)
-        assert np.array_equal(rec, g.round_value(v, dp))
 
 
 class TestPoly:
@@ -186,7 +169,7 @@ class TestParamsValidation:
     accumulation (the preconditions documented at ops/torus.py:76-87)."""
 
     def test_registry_sets_valid(self):
-        from tfhe_tpu.params import PARAMS, validate
+        from tfhe_jax.params import PARAMS, validate
 
         for p in PARAMS.values():
             validate(p)  # must not raise

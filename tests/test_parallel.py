@@ -9,11 +9,11 @@ import numpy as np
 import jax
 import pytest
 
-import tfhe_tpu as tfhe
-from tfhe_tpu.models import test_vector as mtv
-from tfhe_tpu.parallel.mesh import make_mesh
-from tfhe_tpu.parallel.sharded import make_sharded_gate
-from tfhe_tpu.params import get_params
+import tfhe_jax as tfhe
+from tfhe_jax.models import test_vector as mtv
+from tfhe_jax.parallel.mesh import make_mesh
+from tfhe_jax.parallel.sharded import make_sharded_gate
+from tfhe_jax.params import get_params
 
 TEST = get_params("test_insecure")
 
@@ -112,8 +112,8 @@ def test_pipeline_parallel_bit_exact(keys, cts, shape, m_micro):
     """Pipeline-parallel rotation (ppermute stage hops) is bit-identical to
     the single-device scan, for several (batch, stage) splits and queue
     depths (including a deeper-than-stages queue and a 1-wide batch axis)."""
-    from tfhe_tpu.parallel.mesh import make_pipeline_mesh
-    from tfhe_tpu.parallel.pipeline import make_pipelined_gate
+    from tfhe_jax.parallel.mesh import make_pipeline_mesh
+    from tfhe_jax.parallel.pipeline import make_pipelined_gate
 
     ck, sk = keys
     lhs, rhs, ct0, ct1 = cts
@@ -140,28 +140,30 @@ def test_pipeline_parallel_bit_exact(keys, cts, shape, m_micro):
     assert np.array_equal(got, (1 - (lhs_q & rhs_q)).reshape(-1))
 
 
-def test_pallas_sharded_interpret_small():
-    """Pallas backend under shard_map (model-sharded rows + psum) matches the
-    single-device conv path bit-exactly, exercising the REAL sharded call path
-    with the kernel in interpret mode (no monkeypatching)."""
-    ck, sk = tfhe.keygen(TEST, jax.random.key(7))
-    rng = np.random.default_rng(8)
-    lhs = rng.integers(0, 2, size=4).astype(np.uint32)
-    rhs = rng.integers(0, 2, size=4).astype(np.uint32)
-    ct1 = tfhe.encrypt(ck, lhs, key=1)
-    ct0 = tfhe.encrypt(ck, rhs, key=2)
-    want = np.asarray(tfhe.gates.gate(sk, "nand", ct0, ct1, impl="conv"))
+@pytest.mark.parametrize("impl", ["ntts", "auto"])
+def test_row_sharded_plain_backends_bit_exact(keys, cts, reference_out, impl):
+    """BK-row TP through the streaming-NTT contraction (exact mod 2^32 on the
+    local rows, u32 deltas psum'd) and through ``auto``: bit-identical to
+    single-device execution."""
+    _, sk = keys
+    _, _, ct0, ct1 = cts
     mesh = make_mesh(batch=4, model=2)
-    gate_fn = make_sharded_gate(mesh, TEST, "nand", impl="pallas", interpret=True)
+    gate_fn = make_sharded_gate(mesh, TEST, "nand", impl=impl)
     out = np.asarray(gate_fn(ct0, ct1, sk))
-    assert np.array_equal(out, want)
+    assert np.array_equal(out, reference_out)
+
+
+@pytest.mark.parametrize("impl", ["bmmp", "pallas"])
+def test_sharded_gate_refuses_unsharded_backends(impl):
+    with pytest.raises(ValueError, match="no sharded form"):
+        make_sharded_gate(make_mesh(batch=8, model=1), TEST, "nand", impl=impl)
 
 
 def test_host_mesh_bit_exact(keys, cts, reference_out):
     """3-axis (host, batch, model) mesh — ciphertexts shard over
     (host, batch), keys replicated per host, BK rows sharded over model —
     is bit-identical to single-device execution."""
-    from tfhe_tpu.parallel.mesh import make_host_mesh
+    from tfhe_jax.parallel.mesh import make_host_mesh
 
     ck, sk = keys
     lhs, rhs, ct0, ct1 = cts
@@ -174,45 +176,40 @@ def test_host_mesh_bit_exact(keys, cts, reference_out):
 
 
 def test_key_placement_policy():
-    """BK placement: replicate under the HBM budget, row-shard over model
+    """BK placement: replicate under the memory budget, row-shard over model
     above it (SURVEY.md section 2.2 row 5)."""
-    from tfhe_tpu.parallel.mesh import make_host_mesh, plan_key_placement
+    from tfhe_jax.parallel.mesh import make_host_mesh, plan_key_placement
 
     d128 = get_params("default_128")
     mesh = make_host_mesh(host=2, batch=2, model=2)
-    pl = plan_key_placement(d128, mesh)  # ~95 MB keys, 4 GB budget
+    pl = plan_key_placement(d128, mesh, hbm_bytes=1 << 30)  # 95 MB vs 256 MB
     assert not pl.shard_bk_rows
     tight = plan_key_placement(d128, mesh, hbm_bytes=128 << 20, budget_frac=0.25)
     assert tight.shard_bk_rows
     assert tight.per_device_key_bytes < pl.per_device_key_bytes
 
 
-def test_pipeline_pallas_interpret_bit_exact(keys, cts):
-    """Pipeline stages running the Pallas contraction (interpret mode) are
+def test_pipeline_auto_bit_exact(keys, cts):
+    """Pipeline stages with ``auto`` (resolved on the local microbatch) are
     bit-identical to the single-device conv path."""
-    from tfhe_tpu.parallel.mesh import make_pipeline_mesh
-    from tfhe_tpu.parallel.pipeline import make_pipelined_gate
+    from tfhe_jax.parallel.mesh import make_pipeline_mesh
+    from tfhe_jax.parallel.pipeline import make_pipelined_gate
 
     ck, sk = keys
     lhs, rhs, ct0, ct1 = cts
-    m_micro = 2
-    ct0_q = np.stack([np.asarray(ct0)] * m_micro)
-    ct1_q = np.stack([np.asarray(ct1)] * m_micro)
     want = np.asarray(tfhe.gates.gate(sk, "nand", ct0, ct1, impl="conv"))
     mesh = make_pipeline_mesh(batch=4, stage=2)
-    gate_fn = make_pipelined_gate(mesh, TEST, "nand", impl="pallas",
-                                  interpret=True)
-    out = np.asarray(gate_fn(ct0_q, ct1_q, sk))
-    for i in range(m_micro):
-        assert np.array_equal(out[i], want)
+    out = np.asarray(make_pipelined_gate(mesh, TEST, "nand")(
+        np.asarray(ct0)[None], np.asarray(ct1)[None], sk))
+    assert np.array_equal(out[0], want)
 
 
 def test_pipeline_ntt_bit_exact(keys, cts):
     """Pipeline stages running the block-NTT contraction are bit-identical
     to the single-device conv path (bk_ntt sliced by stage)."""
-    from tfhe_tpu.models.keys import with_ntt_key
-    from tfhe_tpu.parallel.mesh import make_pipeline_mesh
-    from tfhe_tpu.parallel.pipeline import make_pipelined_gate
+    from tfhe_jax.models.keys import with_ntt_key
+    from tfhe_jax.parallel.mesh import make_pipeline_mesh
+    from tfhe_jax.parallel.pipeline import make_pipelined_gate
 
     ck, sk = keys
     lhs, rhs, ct0, ct1 = cts
@@ -227,14 +224,12 @@ def test_pipeline_ntt_bit_exact(keys, cts):
 
 
 class TestCollectiveTraffic:
-    """Machine-check of the ARCHITECTURE section 9.1 wire-traffic table: the
-    collective payloads of every sharded mode are read out of the COMPILED
-    gate's HLO (post-SPMD) on the virtual mesh and asserted equal to the
-    closed-form model in ``parallel/traffic.py`` — the same model that
-    generates SCALING.json's predicted efficiencies.  Catches any regression
-    that silently moves raw int32 limb planes instead of combined u32 deltas
-    (4x the wire bytes; the r5 audit caught exactly this in the coeffs
-    mode)."""
+    """Machine-check of the ARCHITECTURE wire-traffic table: the collective
+    payloads of every sharded mode are read out of the COMPILED gate's HLO
+    (post-SPMD) on the virtual mesh and asserted equal to the closed-form
+    model in ``parallel/traffic.py``.  Catches any regression that silently
+    moves raw int32 limb planes instead of combined u32 deltas (4x the wire
+    bytes)."""
 
     def _abstract_args(self, p, batch, impl, m_micro=0):
         import jax.numpy as jnp
@@ -247,7 +242,7 @@ class TestCollectiveTraffic:
         ct = S(ct_shape, jnp.uint32)
         bk_conv = S((n, k1 * 4, rows, n_deg), jnp.int8)
         if impl == "ntt":
-            from tfhe_tpu.ops.ntt import PRIMES, plan_for_params
+            from tfhe_jax.ops.ntt import PRIMES, plan_for_params
 
             plan = plan_for_params(p)
             bk_rows = S(
@@ -264,11 +259,9 @@ class TestCollectiveTraffic:
         return ct, ct, bk_conv, bk_rows, ksk
 
     def _audit(self, gate_fn, p, batch, impl, m_micro=0):
-        from tfhe_tpu.parallel.traffic import gate_collectives
+        from tfhe_jax.parallel.traffic import gate_collectives
 
         args = self._abstract_args(p, batch, impl, m_micro)
-        if m_micro:  # pipelined gate takes (ct0, ct1, bk, ksk)
-            args = (args[0], args[1], args[3 if impl != "conv" else 2], args[4])
         got = {}
         for c in gate_collectives(gate_fn.run_jit, *args):
             got.setdefault(c.kind, set()).add(c.bytes)
@@ -278,7 +271,7 @@ class TestCollectiveTraffic:
         "impl,mode", [("matmul", "tp"), ("coeffs", "coeffs"), ("ntt", "ntt")]
     )
     def test_model_axis_payloads_match_model(self, impl, mode):
-        from tfhe_tpu.parallel.traffic import expected_collectives
+        from tfhe_jax.parallel.traffic import expected_collectives
 
         mesh = make_mesh(batch=4, model=2)
         gate_fn = make_sharded_gate(mesh, TEST, "nand", impl=impl,
@@ -294,9 +287,9 @@ class TestCollectiveTraffic:
         assert got == {}, got
 
     def test_pipeline_payloads_match_model(self):
-        from tfhe_tpu.parallel.mesh import make_pipeline_mesh
-        from tfhe_tpu.parallel.pipeline import make_pipelined_gate
-        from tfhe_tpu.parallel.traffic import expected_collectives
+        from tfhe_jax.parallel.mesh import make_pipeline_mesh
+        from tfhe_jax.parallel.pipeline import make_pipelined_gate
+        from tfhe_jax.parallel.traffic import expected_collectives
 
         m_micro = 3
         mesh = make_pipeline_mesh(batch=4, stage=2)
@@ -308,10 +301,10 @@ class TestCollectiveTraffic:
         assert got == want, (got, want)
 
     def test_section_9_1_table_values(self):
-        """The per-sample/step wire-byte numbers printed in ARCHITECTURE
-        section 9.1 at default_128 derive from the same payload model the
-        HLO checks above pin to the code."""
-        from tfhe_tpu.parallel.traffic import wire_bytes_per_sample_step
+        """The per-sample/step wire-byte numbers in the ARCHITECTURE wire
+        table at default_128 derive from the same payload model the HLO
+        checks above pin to the code."""
+        from tfhe_jax.parallel.traffic import wire_bytes_per_sample_step
 
         d128 = get_params("default_128")
         # TP: 2*(D-1)/D * (k+1)*N*4 -> 6144 at D=2, up to 12288
@@ -324,29 +317,14 @@ class TestCollectiveTraffic:
         # PP: one 6 KB hop per stage boundary amortized over n=722 steps
         pp = wire_bytes_per_sample_step(d128, "pp", 4)
         assert abs(pp - 6144 * 3 / 722) < 0.01
-        # NTT-bin: orders of magnitude above the rest (the 9.1 "cannot ride
-        # ICI" row)
+        # NTT-bin: orders of magnitude above the rest
         assert wire_bytes_per_sample_step(d128, "ntt", 2) > 100_000
-        # and the headline efficiency predictions of the 9.1 table
-        from tfhe_tpu.parallel.traffic import predict_efficiency
-
-        kw = dict(us_per_sample_step=round(1e6 / (4037.0 * 722), 3))
-        assert round(predict_efficiency(
-            d128, "tp", 2, link_gbps=45, **kw), 2) == 0.56  # v5e D=2
-        assert round(predict_efficiency(
-            d128, "tp", 2, link_gbps=90, **kw), 2) == 0.72  # v5p D=2
-        assert round(predict_efficiency(
-            d128, "coeffs", 2, link_gbps=45, **kw), 2) == 0.72
-        assert predict_efficiency(
-            d128, "pp", 4, link_gbps=45, m_microbatches=32, **kw) > 0.85
-        assert predict_efficiency(d128, "dp", 8, link_gbps=25, **kw) == 1.0
-        assert predict_efficiency(d128, "ntt", 2, link_gbps=45, **kw) < 0.1
 
 
 def test_ntt_bin_sharded_bit_exact(keys, cts, reference_out):
     """Sharded-NTT external product (NTT bins over the model axis, raw INTT
     limb planes psum'd per step) is bit-identical to single-device conv."""
-    from tfhe_tpu.models.keys import with_ntt_key
+    from tfhe_jax.models.keys import with_ntt_key
 
     ck, sk = keys
     lhs, rhs, ct0, ct1 = cts

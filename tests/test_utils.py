@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import pytest
 
-import tfhe_tpu as tfhe
-from tfhe_tpu.utils import noise as unoise
-from tfhe_tpu.utils import serialization as ser
-from tfhe_tpu.params import get_params
+import tfhe_jax as tfhe
+from tfhe_jax.utils import noise as unoise
+from tfhe_jax.utils import serialization as ser
+from tfhe_jax.params import get_params
 
 TEST = get_params("test_insecure")
 
@@ -51,16 +51,16 @@ class TestSerialization:
 
     def test_server_key_bmmp_roundtrip(self, tmp_path):
         """A saved BMMP server key must stay a BMMP key (regression: the
-        first serializer silently dropped bk_bmmp_lm)."""
+        first serializer silently dropped the BMMP key)."""
         ck, sk = tfhe.keygen(TEST, jax.random.key(6), bmmp=True)
         p = tmp_path / "sk_bmmp.npz"
         ser.save_server_key(p, sk)
         back = ser.load_server_key(p)
-        assert back.bk_bmmp_lm is not None
-        assert np.array_equal(np.asarray(back.bk_bmmp_lm), np.asarray(sk.bk_bmmp_lm))
+        assert back.bk_bmmp is not None
+        assert np.array_equal(np.asarray(back.bk_bmmp), np.asarray(sk.bk_bmmp))
         bits = np.array([0, 1], dtype=np.uint32)
         out = tfhe.gates.gate(back, "nand", tfhe.encrypt(ck, bits, key=3),
-                              tfhe.encrypt(ck, bits, key=4), impl="bmmp_interpret")
+                              tfhe.encrypt(ck, bits, key=4), impl="bmmp")
         assert np.array_equal(np.asarray(tfhe.decrypt(ck, out)), 1 - (bits & bits))
 
     def test_ciphertext_roundtrip(self, keys, tmp_path):
@@ -99,44 +99,29 @@ class TestNoise:
         assert rep.failures == 1
 
 
-class TestKernelTuning:
-    """_tuning() calibration (ADVICE r3: no untested per-generation rows)."""
+class TestCompileCache:
+    def test_env_var_wins_and_nothing_else_is_set(self, monkeypatch, tmp_path):
+        from tfhe_jax.utils import compile_cache
 
-    def test_off_tpu_is_conservative(self):
-        from tfhe_tpu.ops.pallas import blind_rotate_kernel as brk
+        calls = []
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        monkeypatch.setattr(compile_cache.jax.config, "update",
+                            lambda *a: calls.append(a))
+        assert compile_cache.enable() == str(tmp_path)
+        assert calls == []
 
-        brk._tuning.cache_clear()
-        assert brk._tuning() == brk._DEFAULT_TUNING
-        brk._tuning.cache_clear()
+    def test_unset_uses_fixed_ignored_dir_in_checkout(self, monkeypatch):
+        import os
 
-    def test_measured_generation_uses_table(self, monkeypatch):
-        from tfhe_tpu.ops.pallas import blind_rotate_kernel as brk
+        from tfhe_jax.utils import compile_cache
 
-        class Dev:
-            device_kind = "TPU v5 lite"
-
-        monkeypatch.setattr(brk.jax, "devices", lambda: [Dev()])
-        monkeypatch.setattr(brk.jax, "default_backend", lambda: "tpu")
-        monkeypatch.setattr(
-            brk, "_probe_vmem_budget",
-            lambda b: (_ for _ in ()).throw(AssertionError("probe must not run")),
-        )
-        brk._tuning.cache_clear()
-        assert brk._tuning() == brk._GEN_TUNING["v5 lite"]
-        brk._tuning.cache_clear()
-
-    def test_unknown_generation_probes(self, monkeypatch):
-        from tfhe_tpu.ops.pallas import blind_rotate_kernel as brk
-
-        class Dev:
-            device_kind = "TPU v99x"
-
-        monkeypatch.setattr(brk.jax, "devices", lambda: [Dev()])
-        monkeypatch.setattr(brk.jax, "default_backend", lambda: "tpu")
-        monkeypatch.setattr(brk, "_probe_vmem_budget", lambda b: False)
-        brk._tuning.cache_clear()
-        assert brk._tuning() == brk._DEFAULT_TUNING
-        brk._tuning.cache_clear()
-        monkeypatch.setattr(brk, "_probe_vmem_budget", lambda b: True)
-        assert brk._tuning() == brk._AGGRESSIVE_TUNING
-        brk._tuning.cache_clear()
+        calls = []
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(compile_cache.jax.config, "update",
+                            lambda *a: calls.append(a))
+        path = compile_cache.enable()
+        assert calls == [("jax_compilation_cache_dir", path)]
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as fh:
+            assert ".jax_cache/" in fh.read().split()
